@@ -34,7 +34,10 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax
 
-jax.config.update("jax_platforms", os.environ.get("SRSRAN_TPU_PLATFORM", "cpu"))
+# per-TTI host reference path, on the CPU: the launchers run several
+# JAX processes at once, and a JAX process on a GPU reserves most of
+# the card's memory when it starts, so two of them cannot share a card
+jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
@@ -323,6 +326,8 @@ def run_ue(args):
                 gw.tun.add_route("default")
                 pkg = os.path.dirname(os.path.dirname(
                     os.path.abspath(__file__)))
+                # the ping child is another JAX process: keep it off the
+                # card, whose memory the first JAX process there reserves
                 env = dict(os.environ, PYTHONPATH=pkg,
                            JAX_PLATFORMS="cpu")
                 ping_proc = subprocess.Popen(

@@ -18,7 +18,10 @@ import time
 sys.path.insert(0, ".")
 import jax
 
-jax.config.update("jax_platforms", os.environ.get("SRSRAN_TPU_PLATFORM", "cpu"))
+# per-TTI host reference path, on the CPU: with --tun it starts a second
+# JAX process (the ping), and a JAX process on a GPU reserves most of the
+# card's memory when it starts, so two of them cannot share a card
+jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
@@ -92,6 +95,7 @@ def main():
             gw = ue.attach_tun(name="tun_ue_demo", netns=ns)
             gw.tun.add_route("default")
             pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            # the ping child is a second JAX process: keep it off the card
             env = dict(os.environ, PYTHONPATH=pkg_root, JAX_PLATFORMS="cpu")
             ping = subprocess.Popen(
                 ["ip", "netns", "exec", ns, "python", "-m",

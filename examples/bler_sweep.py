@@ -5,19 +5,16 @@ the full batched receive pipeline (OFDM → chest → equalize → demod →
 turbo), and print BLER + goodput per point.
 
   python examples/bler_sweep.py --prb 6 --mcs 7 --snr 0:10:1 --batch 32
-  SRSRAN_TPU_PLATFORM=tpu python examples/bler_sweep.py --prb 100 --mcs 26 \\
+  python examples/bler_sweep.py --prb 100 --mcs 26 \\
       --snr 14:22:1 --batch 128
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import time
 
 import jax
-
-jax.config.update("jax_platforms", os.environ.get("SRSRAN_TPU_PLATFORM", "cpu"))
 
 import jax.numpy as jnp
 import numpy as np

@@ -14,11 +14,6 @@ CFO estimation, then NSSS + MIB-NB through the grid chain
 from __future__ import annotations
 
 import argparse
-import os
-
-import jax
-
-jax.config.update("jax_platforms", os.environ.get("SRSRAN_TPU_PLATFORM", "cpu"))
 
 import numpy as np
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Dynamic-grant pipeline demo: decode a random scheduler-driven grant mix
 (MCS 0-28 x arbitrary PRB allocations x all subframes) through ONE bounded
-set of pre-compiled programs — the TPU answer to the reference's
+set of pre-compiled programs — the batched answer to the reference's
 per-TTI-arbitrary-grant property (srsue/src/phy/cc_worker.cc:214-307).
 
   python examples/dynamic_grants.py [--prb 50] [--ttis 30]
@@ -15,9 +15,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-import jax
-
-jax.config.update("jax_platforms", os.environ.get("SRSRAN_TPU_PLATFORM", "cpu"))
 
 import numpy as np
 

@@ -11,11 +11,8 @@ metric, and CFO; optionally dump the correlation magnitude.
 from __future__ import annotations
 
 import argparse
-import os
 
 import jax
-
-jax.config.update("jax_platforms", os.environ.get("SRSRAN_TPU_PLATFORM", "cpu"))
 
 import jax.numpy as jnp
 import numpy as np

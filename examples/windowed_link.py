@@ -12,12 +12,7 @@ host work is grant bookkeeping.
 from __future__ import annotations
 
 import argparse
-import os
 import time
-
-import jax
-
-jax.config.update("jax_platforms", os.environ.get("SRSRAN_TPU_PLATFORM", "cpu"))
 
 import numpy as np
 

@@ -267,14 +267,14 @@ class EnbStack:
             "the windowed engines compile per fixed CFI; CFI adaptation "
             "needs the per-TTI host path")
         self.earfcn = earfcn  # this cell's DL carrier (inter-freq mobility)
-        # dynamic_phy: decode UCI-free PUSCH TTIs on the bucketed TPU
+        # dynamic_phy: decode UCI-free PUSCH TTIs on the bucketed device
         # pipeline (pipeline_dynamic.DynamicEnbUl); host path otherwise
         self._dyn_ul = None
         if dynamic_phy:
             from ..pipeline_dynamic import DynamicEnbUl
 
             self._dyn_ul = DynamicEnbUl(cell)
-        # windowed_phy: the windowed TPU engines as the live data plane
+        # windowed_phy: the windowed device engines as the live data plane
         # (pipeline_window via apps.windowed_plane) — W TTIs per dispatch,
         # HARQ feedback stretched to 4+W on BOTH ends (see
         # windowed_plane.py's timing contract); FDD only
@@ -921,7 +921,7 @@ class EnbStack:
             cqi_hyps = [want_cqi]
             if (cqi_on_pusch(tti) or apcqi) and ue_ctx is not None:
                 cqi_hyps.append(not want_cqi)
-            # windowed TPU data plane: UCI-free data TTIs queue into the
+            # windowed device data plane: UCI-free data TTIs queue into the
             # W-TTI PUSCH window (the host chain keeps UCI multiplexing,
             # SRS-shortened subframes and the DTX hypothesis — same split
             # as the dynamic pipeline).  A whole-subframe energy gate
@@ -957,7 +957,7 @@ class EnbStack:
             out = uci_out = None
             if dtx:
                 out = (None, False, sb_in)
-            # dynamic TPU path for UCI-free data TTIs (the production data
+            # dynamic device path for UCI-free data TTIs (the production data
             # plane; UCI multiplexing stays on the host chain)
             dyn_sb = (sb_in[1] if isinstance(sb_in, tuple)
                       and len(sb_in) == 2 and sb_in[0] == "dyn" else None)
@@ -1605,7 +1605,7 @@ class UeStack:
         self._ifreq_hist: list = []      # gap-captured samples (target freq)
         self._ifreq_rsrp: dict = {}      # arfcn -> [CellMeas]
         # dynamic_phy: run single-codeword PDSCH decodes on the bucketed
-        # TPU pipeline (pipeline_dynamic.DynamicUeDl) — the production
+        # device pipeline (pipeline_dynamic.DynamicUeDl) — the production
         # data path; host numpy otherwise (cheap for CPU-only tests)
         self._dyn_phy = None
         if dynamic_phy:
@@ -1613,7 +1613,7 @@ class UeStack:
 
             self._dyn_phy = DynamicUeDl(
                 cell, cfi=cfi, max_iterations=expert.pdsch_max_its)
-        # windowed_phy: the windowed TPU engines as the live data plane —
+        # windowed_phy: the windowed device engines as the live data plane —
         # data PDSCH subframes queue into W-TTI windows and the HARQ
         # feedback runs at 4+W on both ends (windowed_plane.py contract)
         self._win_dl = None

@@ -1,14 +1,14 @@
-"""Windowed TPU data planes for the full stack.
+"""Windowed device data planes for the full stack.
 
 The reference's workers ARE the data plane: every PDSCH/PUSCH subframe
 flows through the sf_worker pipeline with N subframes in flight
 (`srsenb/src/phy/sf_worker.cc:166`, `srsue/src/phy/cc_worker.cc:214`,
-`thread_pool.h:46-77`).  These planes put the windowed TPU engines
+`thread_pool.h:46-77`).  These planes put the windowed device engines
 (`pipeline_window.Windowed*`) underneath `apps/full_stack.py` the same
 way: data-bearing subframes are queued per absolute W-TTI window,
 dispatched as ONE device program chain, and realized a few TTIs later.
 
-Timing contract (the TPU analog of the reference's fixed 4-subframe
+Timing contract (the windowed analog of the reference's fixed 4-subframe
 worker latency): with window W, HARQ feedback for a subframe at TTI t is
 exchanged at t + (4 + W) instead of t + 4 — both stack ends are
 constructed with the same `harq_delay`, so PUCCH ACK positions, PHICH
@@ -38,7 +38,7 @@ REALIZE_DELAY = 4  # TTIs between window dispatch and result realization
 
 
 def _on(device):
-    """Context placing engine work on an explicit jax device (the TPU)
+    """Context placing engine work on an explicit jax device (the card)
     while the surrounding stack code stays on the host platform."""
     if device is None:
         return contextlib.nullcontext()

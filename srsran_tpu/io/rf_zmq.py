@@ -138,8 +138,8 @@ class ZmqRfTx:
 
     # the reference receiver rejects messages over its ring capacity and
     # kills its RX thread (rf_zmq_imp_rx.c:63, ZMQ_MAX_BUFFER_SIZE) — cap
-    # every reply at the same bound so a large timed-TX gap stays interop
-    # (ADVICE r3 #3); 24.6 MB @ fc32 = ~3.07 M base samples
+    # every reply at the same bound so a large timed-TX gap stays interop;
+    # 24.6 MB @ fc32 = ~3.07 M base samples
     MAX_BUFFER_BYTES = 24_600_000
 
     def _send_base(self, x_base: np.ndarray, timeout_ms=None):

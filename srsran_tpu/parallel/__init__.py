@@ -3,7 +3,7 @@ exchange for the sharded sample stream (SURVEY §2.6/§5.7 mappings).
 
 The reference scales with threads/processes + sockets (ZMQ per-carrier
 I/Q, sf_worker pipelines); here the same axes become `jax.sharding` mesh
-axes with XLA collectives over the ICI:
+axes with XLA collectives between devices:
 
   carriers axis   <- one cc_worker thread per carrier
   samples axis    <- the ue_sync streaming loop's overlap-save state

@@ -5,7 +5,7 @@ The reference's overlap-save/add block processing (FFT resampler state
 boundaries) carries boundary samples between sequential calls. When the
 sample axis is sharded across chips, the carried state becomes a
 neighbour exchange: each shard sends its edge samples to the adjacent
-shard with `jax.lax.ppermute` riding the ICI (SURVEY §5.7).
+shard with `jax.lax.ppermute` between devices (SURVEY §5.7).
 
 All ops are built with `shard_map` over a mesh axis named `samples`.
 """
@@ -43,7 +43,8 @@ def stream_halo_exchange(xc, halo: int, axis: str = "samples"):
 
 def sharded_resample_fft(x, p: int, q: int, mesh: Mesh, halo: int = 64, axis: str = "samples"):
     """Rational p/q FFT resampling of a stream sharded along its sample
-    axis; overlap-save boundaries ride the ICI as a halo exchange."""
+    axis; overlap-save boundaries move between devices as a halo
+    exchange."""
 
     def local(xc):
         left, right = stream_halo_exchange(xc, halo, axis)

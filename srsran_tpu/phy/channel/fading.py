@@ -5,7 +5,7 @@ Same models: 3GPP TS 36.101 Annex B.2 tap-delay-line profiles (EPA/EVA/ETU,
 (`fading.c:111,169,242-244`), applied by frequency-domain convolution over
 each subframe block.
 
-TPU-native: the tap gains for a whole batch of subframes are generated in
+Batched: the tap gains for a whole batch of subframes are generated in
 one vectorized pass; the convolution is one FFT multiply per subframe.  The
 emulator is pure: state is the time cursor (for Doppler phase continuity).
 """

@@ -2,7 +2,7 @@
 `lib/src/phy/ch_estimation/chest_dl.c` (LS → smooth → interpolate pipeline,
 entry `srslte_chest_dl_estimate_cfg` chest_dl.c:985).
 
-TPU-first formulation: the whole estimate is two small matmuls per
+Matmul formulation: the whole estimate is two small matmuls per
 (port, rx antenna):
 
     ce(l, k) = sum_s Wt[l, s] * (Wf_s @ P_s)[k]
@@ -11,7 +11,7 @@ with P_s the LS pilot estimates of CRS symbol s, Wf_s a precomputed
 (freq-interp + optional Gaussian smoothing) matrix and Wt the time
 interpolation matrix.  The reference's convolution+interp loops
 (`interpolate_pilots` chest_dl.c:434, `average_pilots` :536) collapse into
-dense matrices that run on the MXU and batch over rx antennas / carriers.
+dense matrices that run as matmuls and batch over rx antennas / carriers.
 
 Outputs per estimate: channel grid, noise power, RSRP, SNR — the same
 measurement set as `srslte_chest_dl_res_t` (chest_dl.h:84-121).
@@ -105,7 +105,7 @@ def _wiener_matrices(cell: Cell, cfg: ChestDlConfig, port: int, sf_idx: int):
     """Frequency-domain Wiener interpolation matrices per CRS symbol.
 
     MMSE estimator W = R_dp (R_pp + s2 I)^-1 under a uniform power-delay
-    profile over [0, tau_max] (the TPU-friendly form of the reference's
+    profile over [0, tau_max] (the matmul form of the reference's
     runtime-correlation Wiener, wiener_dl.c): correlation between
     subcarriers df apart is sinc(df*tau) * exp(-j*pi*df*tau).
     The noise-dependent inverse is folded in for a fixed design SNR of

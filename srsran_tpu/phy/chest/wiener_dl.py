@@ -4,7 +4,7 @@ The reference's SRSLTE_ESTIMATOR_ALG_WIENER measures the channel's
 frequency autocorrelation online from LS pilot estimates (random 2-PRB
 subbands into FIFOs, FFT low-pass, 8x8 matrix inverse per update —
 wiener_dl.c:546-751) and filters pilots through the resulting Wiener
-matrices.  This is the TPU-native redesign of the same idea:
+matrices.  This is the batched redesign of the same idea:
 
 - state is an explicit pytree (EMA of the 3-RE-lag autocorrelation),
   not FIFOs — functional and jit/scan-friendly;
@@ -15,7 +15,7 @@ matrices.  This is the TPU-native redesign of the same idea:
   autocorrelation (the reference's fft→filter→ifft smoothing,
   wiener_dl.c:664-667, becomes a clamp to non-negative delay power);
 - the full-band Wiener matrix W = R_dp (R_pp + n I)^-1 is ONE
-  `jnp.linalg.inv` + matmul on the MXU per subframe instead of
+  `jnp.linalg.inv` + matmul per subframe instead of
   per-subband 8x8 inverses.
 
 Use `wiener_init()` once, then `chest_dl_adaptive(...)` per subframe,

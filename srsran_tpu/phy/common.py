@@ -1,4 +1,4 @@
-"""LTE numerology and cell configuration (TPU-native framework).
+"""LTE numerology and cell configuration.
 
 Semantic parity with the reference constants in
 `lib/include/srslte/phy/common/phy_common.h:107-158` and
@@ -64,7 +64,7 @@ VALID_NOF_PRB = (6, 15, 25, 50, 75, 100)
 
 def symbol_sz(nof_prb: int, use_standard_rates: bool = True) -> int:
     """FFT size for a bandwidth.  Mirrors `srslte_symbol_sz`
-    (`phy_common.c:334-377`).  TPU default = power-of-2 ("standard") rates,
+    (`phy_common.c:334-377`).  Default = power-of-2 ("standard") rates,
     which are both 3GPP-standard sample rates and the best FFT sizes for XLA.
     """
     if nof_prb <= 0:

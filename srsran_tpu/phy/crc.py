@@ -1,12 +1,12 @@
 """LTE CRC (24A/24B/16/8), TS 36.212 §5.1.1.
 
 Parity with the reference table-driven CRC (`lib/src/phy/fec/crc.c`; polys at
-`lib/include/srslte/phy/common/phy_common.h:71-74`), re-designed for TPU:
+`lib/include/srslte/phy/common/phy_common.h:71-74`), re-designed as a matmul:
 
 CRC over GF(2) is linear, so for a fixed message length N the checksum is a
 binary matrix product:  crc = bits @ M  (mod 2), where row i of M is
-x^(N-1-i+L) mod g(x).  On device that is a single (B, N) x (N, L) matmul —
-MXU work, batchable across codeblocks — instead of a bit-serial loop.  The
+x^(N-1-i+L) mod g(x).  On device that is a single (B, N) x (N, L) matmul,
+batchable across codeblocks, instead of a bit-serial loop.  The
 matrix is precomputed on host and cached per (poly, N).
 
 Convention: checksum bits are emitted MSB-first (coefficient of x^(L-1)

@@ -3,8 +3,8 @@
 Re-design of `lib/src/phy/dft/dft_precoding.c`.  Sizes are 12*n with n
 composed of factors 2/3/5 (`srslte_dft_precoding_valid_prb`), so instead of
 non-power-of-2 FFT plans we apply a precomputed DFT matrix — an (M, M)
-complex matmul per symbol batch, which is exactly what the MXU wants at
-these sizes (M ≤ 1200).
+complex matmul per symbol batch, which batches well at these sizes
+(M ≤ 1200).
 """
 
 from __future__ import annotations

@@ -4,9 +4,9 @@ Reference: `lib/src/phy/fec/convcoder.c` (polys 0x6D, 0x4F, 0x57 with
 ``sr = (sr<<1)|bit``, ``out = parity(sr & poly)`` — see pbch.c:152) and the
 five SIMD Viterbi implementations (`viterbi37_*.c`).
 
-TPU design: one `lax.scan` add-compare-select over the 64-state trellis with
-the batch axis on codeblocks — states live in a (B, 64) metric tensor on the
-VPU; decisions are stored and a second scan does traceback.  Tail-biting is
+Design: one `lax.scan` add-compare-select over the 64-state trellis with
+the batch axis on codeblocks — states live in a (B, 64) metric tensor;
+decisions are stored and a second scan does traceback.  Tail-biting is
 handled by wrap-around Viterbi: decode the sequence repeated 3x and keep the
 middle copy (near-ML, standard WAVA practice; the reference similarly decodes
 with wrapped sequences).

@@ -157,7 +157,7 @@ def _valid_rank_dev(k, f, k_max: int):
 
 
 def codeword_d_fill_dev(llr_pad, off, e, k, f, rv, k_max: int, rep: int):
-    """De-rate-match ONE codeblock as pure gathers (no TPU scatter).
+    """De-rate-match ONE codeblock as pure gathers (no scatter).
 
     llr_pad: (G + NCB_MAX,) codeword LLRs zero-padded (shared across the
     TB's CBs).  off/e/k/f: traced int32 — this CB's codeword offset,
@@ -168,9 +168,8 @@ def codeword_d_fill_dev(llr_pad, off, e, k, f, rv, k_max: int, rep: int):
     the sum of every transmitted bit that maps to it (the HARQ `+=`
     semantics of rm_turbo RX); <NULL>/filler/beyond-K positions are 0.
 
-    TPU scatters serialize badly (measured 289 ms for one window of
-    scattered index builds); this form is a cumsum + `rep` strided
-    slices + two gather passes, all fast paths.
+    Scatters serialize (colliding indices); this form is a cumsum +
+    `rep` strided slices + two gather passes.
     """
     dflat = 3 * (k_max + 4)
     NCB = ncb_max(k_max)
@@ -339,8 +338,7 @@ def codeword_d_fill_grouped_dev(llr_pad, start, e_eff, cls, k3, f3, rv,
     A transport block has at most 3 distinct CB layouts (CB0-with-filler,
     K-, K+), so the per-position index tables are built once per VARIANT
     and every per-CB gather uses indices SHARED across the CB batch axis
-    (per-row-index gathers run ~100 M elem/s on the TPU; shared-index
-    gathers vectorize — measured 7x faster at equal element count).
+    (shared-index gathers vectorize better than per-row-index ones).
 
     llr_pad: (G_MAX + NCB_MAX,) zero-padded codeword LLRs.
     start/e_eff: (B_CB,) per-CB codeword offsets / lengths (0 = unused).

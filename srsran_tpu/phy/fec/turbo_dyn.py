@@ -34,7 +34,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .turbo import NEG_INF, TRAIN, _beta_tail, _trellis, _window_layout, dstream_tails
+from .turbo import (NEG_INF, TRAIN, _beta_tail, _trellis, _window_layout,
+                    auto_backend, dstream_tails, window_rows)
 
 
 def map_decoder_dyn(lx, lz, beta_k, k_vec, k_max: int, dtype=jnp.float32,
@@ -47,11 +48,10 @@ def map_decoder_dyn(lx, lz, beta_k, k_vec, k_max: int, dtype=jnp.float32,
     (garbage beyond K — callers mask).
 
     Same window layout/scan structure as `turbo.map_decoder` (states on
-    sublanes, B*nw windows on lanes); the only dynamic additions are the
-    per-lane beta injection and the erasure region.  backend "auto" takes
-    the Pallas VMEM kernel on real TPUs (the injection rides the kernel's
-    dynamic-K input, `turbo_pallas._map_kernel(dyn=True)`); every other
-    platform runs the XLA scan.
+    the leading axis, B*nw windows on lanes); the only dynamic additions
+    are the per-lane beta injection and the erasure region.  backend
+    "auto" follows `turbo.auto_backend`: the Pallas kernel on a GPU (the
+    injection rides its per-lane `kq` input), the XLA scan elsewhere.
     """
     t = _trellis()
     nw, lw = _window_layout(k_max)
@@ -62,60 +62,33 @@ def map_decoder_dyn(lx, lz, beta_k, k_vec, k_max: int, dtype=jnp.float32,
     x = (0.5 * lx).astype(dtype)
     z = (0.5 * lz).astype(dtype)
 
+    if backend == "auto":
+        backend = auto_backend(dtype)
+    rows = window_rows(x, z, nw, lw, T)
+    starts = np.arange(nw) * lw
+    if backend in ("pallas", "pallas_interpret"):
+        from .turbo_kernel import map_windows
+
+        lane_w = np.tile(np.arange(nw), b)
+        a_mask = jnp.asarray((lane_w == 0).astype(np.float32))
+        b_known = jnp.repeat(beta_k.astype(jnp.float32), nw, axis=0).T
+        w_starts_t = jnp.asarray(np.tile(starts, b).astype(np.int32))
+        k_local = jnp.repeat(k_vec.astype(jnp.int32), nw) - w_starts_t
+        kq = jnp.where((k_local >= 1) & (k_local <= lw), k_local, 0)
+        llr = map_windows(
+            *rows, a_mask, kq, b_known, T=T, lw=lw,
+            interpret=(backend == "pallas_interpret"))
+        return llr.reshape(lw, b, nw).transpose(1, 2, 0).reshape(
+            b, k_max).astype(jnp.float32)
+    # alpha as in the static decoder (positions < K never read data beyond
+    # K, and erasure steps beyond K are harmless)
+    ax_train, az_train, bx_train, bz_train, ax_main, az_main = rows
+
     sp = (2.0 * t["parity"] - 1.0).astype(np.float32)
     spp = (2.0 * t["prev_parity"] - 1.0).astype(np.float32)
     spu = (2.0 * t["prev_u"] - 1.0).astype(np.float32)
     ps0, ps1 = t["prev_state"][:, 0], t["prev_state"][:, 1]
     ns0, ns1 = t["next_state"][:, 0], t["next_state"][:, 1]
-
-    def win_view(xp, starts, length):
-        idx = starts[:, None] + np.arange(length)[None, :]
-        return xp[:, idx].transpose(2, 0, 1).reshape(length, bn)
-
-    starts = np.arange(nw) * lw
-
-    # --- alpha (identical to the static decoder: positions < K never read
-    # data beyond K, and erasure steps beyond K are harmless) ---
-    pad_x = jnp.concatenate([jnp.zeros((b, T), dtype), x], axis=-1)
-    pad_z = jnp.concatenate([jnp.zeros((b, T), dtype), z], axis=-1)
-    ax_train = win_view(pad_x, starts, T)
-    az_train = win_view(pad_z, starts, T)
-    ax_main = win_view(x, starts, lw)
-    az_main = win_view(z, starts, lw)
-
-    if backend == "auto":
-        _dev = getattr(jax.config, "jax_default_device", None)
-        if isinstance(_dev, str):  # e.g. jax_default_device="cpu"
-            _dev_platform = _dev.split(":")[0]
-        else:
-            _dev_platform = getattr(_dev, "platform", None)
-        _on_tpu = (jax.default_backend() == "tpu"
-                   and (_dev_platform is None or _dev_platform == "tpu"))
-        backend = ("pallas" if _on_tpu and k_max > 2048 and lw % 2 == 0
-                   else "scan")
-    if backend in ("pallas", "pallas_interpret"):
-        from .turbo_pallas import map_windows_pallas
-
-        lane_w = np.tile(np.arange(nw), b)
-        a_mask = jnp.asarray((lane_w == 0).astype(np.float32)[None, :])
-        b_mask = jnp.zeros((1, bn), jnp.float32)  # kq handles q == lw
-        b_known = jnp.repeat(beta_k.astype(jnp.float32), nw, axis=0).T
-        w_starts_t = jnp.asarray(np.tile(starts, b).astype(np.int32))
-        k_local = jnp.repeat(k_vec.astype(jnp.int32), nw) - w_starts_t
-        kq = jnp.where((k_local >= 1) & (k_local <= lw), k_local, 0
-                       ).astype(jnp.float32)[None, :]
-        bx_train_p = win_view(
-            jnp.concatenate([x, jnp.zeros((b, T), dtype)], -1),
-            starts + lw, T)
-        bz_train_p = win_view(
-            jnp.concatenate([z, jnp.zeros((b, T), dtype)], -1),
-            starts + lw, T)
-        llr = map_windows_pallas(
-            ax_train, az_train, ax_main, az_main, bx_train_p, bz_train_p,
-            a_mask, b_mask, b_known, T=T, lw=lw,
-            interpret=(backend == "pallas_interpret"), kq=kq)
-        return llr.reshape(lw, b, nw).transpose(1, 2, 0).reshape(
-            b, k_max).astype(jnp.float32)
 
     c_spu0 = jnp.asarray(spu[:, 0:1], dtype)
     c_spu1 = jnp.asarray(spu[:, 1:2], dtype)
@@ -144,11 +117,6 @@ def map_decoder_dyn(lx, lz, beta_k, k_vec, k_max: int, dtype=jnp.float32,
     _, alphas = jax.lax.scan(alpha_step_out, a_init, (ax_main, az_main))
 
     # --- beta with dynamic tail injection ---
-    pad_x2 = jnp.concatenate([x, jnp.zeros((b, T), dtype)], axis=-1)
-    pad_z2 = jnp.concatenate([z, jnp.zeros((b, T), dtype)], axis=-1)
-    bx_train = win_view(pad_x2, starts + lw, T)
-    bz_train = win_view(pad_z2, starts + lw, T)
-
     c_sp0 = jnp.asarray(sp[:, 0:1], dtype)
     c_sp1 = jnp.asarray(sp[:, 1:2], dtype)
 
@@ -173,7 +141,7 @@ def map_decoder_dyn(lx, lz, beta_k, k_vec, k_max: int, dtype=jnp.float32,
     # represents position w*lw + (lw - j) == K, i.e. at reversed step
     # j = w*lw + lw - K (steps outside [0, lw) never fire — that lane's K
     # lies in another window).
-    # lane order is (b, w) flattened — matches win_view's reshape(…, bn)
+    # lane order is (b, w) flattened — matches window_rows' lanes
     w_starts = jnp.asarray(np.tile(starts, b))
     k_lane = jnp.repeat(k_vec.astype(jnp.int32), nw)  # (bn,)
     inject_step = w_starts + lw - k_lane  # (bn,) reversed-step index, may be out of range
@@ -227,17 +195,15 @@ def turbo_decode_dyn(
     perm_groups: optional (per3, inv3, cls) for the windowed layout where
     B = W * B_CB and a transport block has at most 3 distinct CB layouts
     (CB0-with-filler / K- / K+): per3/inv3 (W, 3, K_max), cls (W, B_CB)
-    int32 in [0, 3).  Per-row-index gathers run ~100 M elem/s on the TPU
-    while gathers whose indices are SHARED across a batch axis vectorize
-    (measured 18.7 ms vs 2.7 ms for the same element count) — grouping
-    turns every interleave into 3 shared gathers + a select.
+    int32 in [0, 3).  Gathers whose indices are SHARED across a batch
+    axis vectorize better than per-row-index gathers — grouping turns
+    every interleave into 3 shared gathers + a select.
     class_perms: optional (perC (NCLS, K_max), invC (NCLS, K_max),
     cls (B,)) — WINDOW-GLOBAL layout classes: every batch row selects one
     of NCLS permutation tables shared by the whole batch, so each
     interleave is NCLS fully-vectorized shared-index gathers + a select
-    chain.  This is the r3 fast path: the per-TTI grouped form above
-    still pays per-row gather rates along the TTI axis (measured 127 ms
-    for a (64, 16)-slot window vs ~3 ms class-shared).
+    chain (the per-TTI grouped form above still gathers per row along
+    the TTI axis).
     Returns (bits (B, K_max) uint8 — zero beyond K, posteriors,
     n_iters (B,) int32 — the iteration at which each CB's CRC first
     passed, or the loop's final iteration count if it never did).

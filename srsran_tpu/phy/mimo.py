@@ -8,7 +8,7 @@ Functional re-design of `lib/src/phy/mimo/{layermap,precoding}.c`:
   Table 6.3.4.2.3-1 codebook (+ CDD for TM3)
 * predecoding: MRC for single layer, SFBC combining, and batched ZF/MMSE
   (`precoding.c:847-1177`) — expressed as closed-form 2x2 complex solves,
-  elementwise over the RE axis (VPU-vectorized; no per-RE loops), with the
+  elementwise over the RE axis (vectorized; no per-RE loops), with the
   CSI output used for LLR weighting just like the reference.
 
 Shape conventions (RE-last, batch-first):

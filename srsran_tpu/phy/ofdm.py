@@ -15,11 +15,10 @@ Behavioral parity with the reference modulator (`lib/src/phy/dft/ofdm.c`):
   domain multiply by ``exp(j*2*pi*f*n/N)`` with n continuous over the
   subframe — used for the UL ±half-subcarrier shift.
 
-TPU-first design: no stateful plan objects — a frozen `OfdmConfig` (static
+Design: no stateful plan objects — a frozen `OfdmConfig` (static
 jit arg) + pure functions over arrays.  Symbol windows are extracted with 14
 static slices (fused by XLA); the FFT is one batched `jnp.fft.fft` over all
-symbols (and any leading batch axes), which is how the MXU/VPU want it —
-instead of the reference's per-symbol FFTW calls.
+symbols (and any leading batch axes) — instead of the reference's per-symbol FFTW calls.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ Re-design of `lib/src/phy/phch/pbch.c` (decode at :444): 40-bit MIB+CRC16
 matched to 1920 bits (normal CP), scrambled over a 40 ms TTI, QPSK on the
 central 6 PRB of slot-1 symbols 0-3 (4-port CRS positions always reserved).
 
-TPU shape: the UE-side blind decode over {4 frame offsets} x {1,2,4 antenna
+Batched shape: the UE-side blind decode over {4 frame offsets} x {1,2,4 antenna
 ports} runs as ONE batched Viterbi decode of 12 hypotheses, then a vector
 CRC check — no serial retry loop.
 """

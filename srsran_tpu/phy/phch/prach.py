@@ -6,7 +6,7 @@ subcarrier mapping at 1.25 kHz, time-domain generation by zero-padded IFFT
 (`prach.c:531-568`); detection by frequency-domain conjugate multiply +
 length-839 IDFT and per-zone peak search (`prach.c:581-621`).
 
-TPU design: detection for ALL 64 preambles of a config is one batched
+Design: detection for ALL 64 preambles of a config is one batched
 (n_roots, 839) x (839, 839) DFT-matrix matmul + per-zone segmented max —
 no per-preamble loop.  Format 0 only for round 1 (the FDD default).
 """

@@ -4,7 +4,7 @@ Re-design of `lib/src/phy/phch/sch.c` (`encode_tb` :351, `decode_tb` :503):
 TB CRC24A → segmentation (+ per-CB CRC24B when C>1, filler bits) → turbo
 code → rate matching with per-CB E split → concatenation.
 
-TPU shape: codeblocks of equal size decode as ONE batched turbo decode; the
+Batched shape: codeblocks of equal size decode as ONE batched turbo decode; the
 per-CB loop of the reference (`decode_tb_cb` sch.c:363-487) becomes a batch
 axis.  Filler bits are pinned with strong LLRs on the decoder side (the
 known-bits trick, mirroring the reference's NULL handling).
@@ -93,9 +93,8 @@ def dlsch_decode_multi_device(llrs, cfgs, max_iterations: int = 5):
     distinct (K, crc-poly) — for a 2-codeword TM3/TM4 subframe that is
     typically 1-2 sequential turbo calls instead of the 4-6 the previous
     per-(K, E, F)-group form made (e− and e+ CBs of the same K decode
-    together since rate matching is per-CB static anyway; this was the 2x
-    MIMO deficit of BENCH_r02 / VERDICT r2 weak #5).  The reference decodes
-    every CB serially (`sch.c:363-487 decode_tb_cb`).
+    together since rate matching is per-CB static anyway).  The reference
+    decodes every CB serially (`sch.c:363-487 decode_tb_cb`).
     """
     # (cw, cb index, k, e, f, codeword offset, crc_poly)
     entries = []

@@ -38,7 +38,7 @@ def _codebook(o: int, n_out: int, use20: bool) -> np.ndarray:
 def rm_decode(llr, o: int, use20: bool = False):
     """ML decode (..., E) LLRs (positive ⇒ bit 1) → ((..., o) bits, metric).
 
-    One matmul against the full codebook — the TPU way to brute-force 2^O.
+    One matmul against the full codebook — a batched brute force over 2^O.
     """
     e = llr.shape[-1]
     book = jnp.asarray(_codebook(o, e, use20))  # (2^o, E) in ±1 (bit0→+1)

@@ -111,7 +111,7 @@ def resample_arb(x, rate: float, nphases: int = 32, ntaps: int = 8):
     the input at time k/rate, interpolated by an 8-tap fractional-delay
     filter with linear blending between the 32 bank phases.
 
-    TPU form: ONE gather of (n_out, ntaps) windows + one einsum against the
+    Batched form: ONE gather of (n_out, ntaps) windows + one einsum against the
     blended coefficients — no shift register, no per-sample loop.
     x: (..., n) → (..., floor(n*rate)).
     """

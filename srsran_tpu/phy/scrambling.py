@@ -1,6 +1,6 @@
 """Scrambling: Gold-sequence XOR on bits / sign flip on LLRs and symbols.
 
-Parity with `lib/src/phy/scrambling/scrambling.c` — on TPU the sequence is a
+Parity with `lib/src/phy/scrambling/scrambling.c` — here the sequence is a
 precomputed array (see `sequence.py`), and descrambling soft values is an
 elementwise multiply by (1-2c), fused by XLA into adjacent ops.
 """

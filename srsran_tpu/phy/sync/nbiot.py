@@ -110,7 +110,7 @@ def _nsss_hypothesis_matrix() -> np.ndarray:
 def nsss_detect(grid):
     """Detect (n_id_ncell, frame4) from a (14, 12) subframe-9 grid.
 
-    One 2016x132 hypothesis matmul on the MXU (the §A.3 SSS-matmul design
+    One 2016x132 hypothesis matmul (the §A.3 SSS-matmul design
     scaled to NB-IoT's full 504-cell space).
     """
     d_rx = jnp.concatenate(

@@ -5,7 +5,7 @@ cross-correlation against the three time-domain Zadoff-Chu replicas
 (`pss.c:191-197`, `srslte_pss_find_pss` :451), CFO estimated from the phase
 between the two half-replica dot products (`srslte_pss_cfo_compute`).
 
-On TPU: all three N_id_2 roots are correlated in ONE batched FFT multiply —
+Batched: all three N_id_2 roots are correlated in ONE batched FFT multiply —
 a (3, nfft) elementwise product instead of three serial convolutions — and
 cell search over frequencies/cells batches further up.
 """

@@ -1,10 +1,10 @@
 """SSS generation and detection, TS 36.211 §6.11.2.
 
 The reference detects m0/m1 separately with partial correlations
-(`lib/src/phy/sync/find_sss.c:31-136`).  TPU-native design: precompute the
+(`lib/src/phy/sync/find_sss.c:31-136`).  Matmul design: precompute the
 full hypothesis matrix of all 168 N_id_1 sequences (for each N_id_2 and
 subframe 0/5) and detect with ONE matmul — 336x62 against the received SSS
-symbol, batched over carriers/windows; the MXU eats this for free and there
+symbol, batched over carriers/windows; there
 is no data-dependent control flow.
 """
 

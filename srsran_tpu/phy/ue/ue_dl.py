@@ -66,7 +66,7 @@ def ue_dl_decode_subframe(
     format set (1A always; plus 1 for TM1/2, 2A for TM3, 2 for TM4 — the
     ue_dl.c:56-87 format tables) and the spatial-multiplexing decode path.
     ``dynamic``: an optional `pipeline_dynamic.DynamicUeDl` — single-
-    codeword FDD PDSCH decodes then run on the bucketed TPU path (zero
+    codeword FDD PDSCH decodes then run on the bucketed device path (zero
     per-grant recompiles) instead of the host-orchestrated chain.
     ``deferred``: an optional `apps.windowed_plane.WindowedUeDlPlane` —
     FDD data grants are queued into W-TTI windows instead of being
@@ -342,7 +342,7 @@ def _decode_grant(res, fmt, bits, cce, grid, ce, noise, cell, sf_idx, cfi,
     if (dynamic is not None and not is_tdd and last_symbol is None
             and grant.tx_scheme in ("port0", "diversity") and grant.tbs > 0
             and dynamic.cfi == cfi):
-        # bucketed TPU data path (pipeline_dynamic): any grant, no
+        # bucketed device data path (pipeline_dynamic): any grant, no
         # per-grant recompiles, HARQ combining in the bucket layout
         tb, ok, sb_out, _ = dynamic.decode(samples, sf_idx, grant,
                                            softbuffer=sb)

@@ -1,6 +1,6 @@
 """Fully-jittable subframe pipelines and multi-carrier sharding.
 
-This is the TPU-native analog of the reference's app PHY workers
+This is the batched analog of the reference's app PHY workers
 (`srsue/src/phy/cc_worker.cc` per-carrier processing): instead of one thread
 per carrier, carriers are a **batch/shard axis** of one compiled program.
 
@@ -189,7 +189,7 @@ def multi_carrier_ue_dl(
     Returns fn(samples (n_carriers, nrx, sf_len)) ->
       (tb (n_carriers, tbs), ok (n_carriers,), total_ok ())
     With a mesh, the carrier axis is sharded and `total_ok` is a cross-chip
-    psum-style reduction (rides the ICI).
+    psum-style reduction (a collective between devices).
     """
     single = ue_dl_subframe(cell, sf_idx, cfi, grant, max_iterations)
 

@@ -3,7 +3,7 @@ from `srsue/src/phy/sf_worker.cc:43-50,265-268` under ENABLE_GUI).
 
 The reference opens live Qt scopes for the PDSCH constellation and the
 channel response.  Here the same scopes render headlessly to PNG (the
-framework runs on headless TPU hosts), rate-limited like the GUI's
+framework runs on headless accelerator hosts), rate-limited like the GUI's
 per-frame update.  Single-series engineering plots: one hue, recessive
 grid, no legend.
 """

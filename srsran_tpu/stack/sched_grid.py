@@ -4,7 +4,7 @@ The reference resolves PDCCH collisions across UEs and the common
 search space with an allocation tree per TTI and escalates the CFI when
 the control region cannot host every needed DCI
 (`srsenb/src/stack/mac/scheduler_grid.cc:154-165` alloc_dci / pdcch_grid).
-This module is that role for the TPU stack: `PdcchGrid` tracks one TTI's
+This module is that role for this stack: `PdcchGrid` tracks one TTI's
 CCE occupancy and allocates collision-free candidates from the proper
 search space (UE-specific Yk hash or the common space for SI-/P-/RA-RNTI
 — TS 36.213 §9.1.1), and `min_cfi_for` dry-runs the allocation to find

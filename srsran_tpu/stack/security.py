@@ -9,7 +9,7 @@ Implements from the public 3GPP specifications:
   - TS 33.401 key derivation (K_ASME, K_eNB, NAS/RRC/UP keys) via
     HMAC-SHA256 (Annex A)
 
-All functions are host-side (control plane / per-PDU crypto is not a TPU
+All functions are host-side (control plane / per-PDU crypto is not a device
 workload). AES is a self-contained pure-Python implementation with the
 S-box computed from its GF(2^8) definition; SNOW3G's SQ box and ZUC's
 S0/S1/D tables are constants from the respective algorithm specs.

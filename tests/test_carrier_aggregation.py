@@ -130,7 +130,7 @@ class TestCaE2e:
                 break
         assert sorted(ue.ip_rx) == sorted(pkts)
         assert ue.stats.get("scell_tbs_ok", 0) > 0  # SCell actually carried TBs
-        # FDD CA HARQ-ACK multiplexing (VERDICT r4 item 9): the per-CC
+        # FDD CA HARQ-ACK multiplexing: the per-CC
         # ACK bits ride ONE PUCCH format-3 resource (pucch_proc.c:60-150;
         # occasions colliding with a PUSCH take the CA UCI-on-PUSCH leg)
         # and the eNB's SCell scheduler runs on REAL decoded feedback

@@ -2,9 +2,8 @@
 
 The reference decodes arbitrary per-TTI grants inside a fixed budget with
 no recompilation (`srsue/src/phy/cc_worker.cc:214-307`, `sch.c:503`);
-`pipeline_dynamic.DynamicUeDl` must do the same on TPU via shape buckets.
-These tests are the compile/VMEM budget regression VERDICT r1 item 10 asked
-for: a realistic scheduler-driven mix must decode correctly AND stay under
+`pipeline_dynamic.DynamicUeDl` must do the same on device via shape
+buckets.  These tests are the compile-budget regression: a realistic scheduler-driven mix must decode correctly AND stay under
 an explicit XLA-program budget.
 """
 
@@ -160,21 +159,17 @@ def test_dynamic_turbo_all_cb_sizes_sampled():
         np.testing.assert_array_equal(bits[i, :k], msgs[i], err_msg=f"K={k}")
 
 
-def test_dynamic_turbo_pallas_kernel_parity():
-    """The Pallas dynamic-K MAP (per-lane mid-stream beta injection,
-    `turbo_pallas._map_kernel(dyn=True)`) decodes a mixed-K batch
-    identically to the XLA scan path (interpret mode on CPU)."""
+def _dyn_kernel_case(k_max, rng):
+    """A mixed-K batch for `turbo_decode_dyn`: sizes up to k_max."""
     import jax.numpy as jnp
 
     from srsran_tpu.phy.common import LTE_CRC24A
     from srsran_tpu.phy.crc import crc_attach_np
     from srsran_tpu.phy.fec.turbo import turbo_encode_np
-    from srsran_tpu.phy.fec.turbo_dyn import crc_table_ab, turbo_decode_dyn
+    from srsran_tpu.phy.fec.turbo_dyn import crc_table_ab
 
-    rng = np.random.default_rng(7)
-    k_max = 2112
-    ks = [40, 512, 1056, 2048, 2112]
-    b = 8
+    ks = [k for k in (40, 512, 1056, 2048, 5824) if k < k_max] + [k_max]
+    b = len(ks) + 1
     d = np.zeros((b, 3, k_max + 4), np.float32)
     per = np.tile(np.arange(k_max, dtype=np.int32), (b, 1))
     inv = per.copy()
@@ -199,6 +194,20 @@ def test_dynamic_turbo_pallas_kernel_parity():
             jnp.asarray(inv), jnp.asarray(valid))
     kw = dict(crc_table=jnp.asarray(crc_table_ab(k_max)),
               crc_is_b=jnp.asarray(np.zeros(b, bool)))
+    return args, kw, k_vec, msgs
+
+
+@pytest.mark.parametrize("k_max", [512, 2048, 5824, 6144])
+def test_dynamic_turbo_pallas_kernel_parity(k_max):
+    """The Pallas MAP kernel's dynamic-K path (per-lane mid-stream beta
+    injection at `kq`) decodes a mixed-K batch identically to the XLA
+    scan path (interpret mode on CPU)."""
+    import jax.numpy as jnp
+
+    from srsran_tpu.phy.fec.turbo_dyn import turbo_decode_dyn
+
+    args, kw, k_vec, msgs = _dyn_kernel_case(k_max, np.random.default_rng(7))
+    b = len(k_vec)
     bits_s, post_s, _ = turbo_decode_dyn(*args, k_max, 4, backend="scan",
                                          **kw)
     bits_p, post_p, _ = turbo_decode_dyn(
@@ -210,6 +219,28 @@ def test_dynamic_turbo_pallas_kernel_parity():
     mask = np.arange(k_max)[None, :] < np.asarray(k_vec)[:, None]
     np.testing.assert_allclose(np.asarray(post_s)[mask],
                                np.asarray(post_p)[mask], atol=2e-3)
+
+
+@pytest.mark.gpu
+def test_dynamic_turbo_kernel_on_card(gpu):
+    """On the card: the compiled dynamic-K kernel against the scan on a
+    mixed-K batch up to 6144 — identical bits, every codeblock exact,
+    posteriors within 2e-3 (float32 max-log; only the order of the scan's
+    fused adds may differ)."""
+    from srsran_tpu.phy.fec.turbo_dyn import turbo_decode_dyn
+
+    k_max = 6144
+    args, kw, k_vec, msgs = _dyn_kernel_case(k_max, np.random.default_rng(8))
+    bits_s, post_s, _ = turbo_decode_dyn(*args, k_max, 6, backend="scan",
+                                         **kw)
+    bits_p, post_p, _ = turbo_decode_dyn(*args, k_max, 6, backend="pallas",
+                                         **kw)
+    np.testing.assert_array_equal(np.asarray(bits_s), np.asarray(bits_p))
+    for i, k in enumerate(k_vec):
+        np.testing.assert_array_equal(np.asarray(bits_p)[i, :k], msgs[i])
+    mask = np.arange(k_max)[None, :] < np.asarray(k_vec)[:, None]
+    np.testing.assert_allclose(np.asarray(post_s)[mask],
+                               np.asarray(post_p)[mask], atol=2e-3, rtol=0)
 
 
 def _valid_pusch_l(n):
@@ -291,7 +322,7 @@ def test_dynamic_ul_harq_combining():
 def test_facade_on_dynamic_backend():
     """The live UE facade (blind search + HARQ bookkeeping) rides the
     bucketed pipeline when given a DynamicUeDl — same TBs as the host
-    path (VERDICT r1 item 1: 'move the live stack's data path onto it')."""
+    path (the live stack's data path on the bucketed pipeline)."""
     from srsran_tpu.phy.enb.enb_dl import DlSched, enb_dl_subframe
     from srsran_tpu.phy.phch.dci import Dci1A
     from srsran_tpu.phy.phch.ra import riv_encode
@@ -326,7 +357,7 @@ def test_facade_on_dynamic_backend():
 
 def test_full_stack_on_dynamic_pipelines():
     """Live attach + IP traffic with BOTH ends' data planes on the
-    bucketed TPU pipelines (EnbStack/UeStack dynamic_phy=True) — the
+    bucketed device pipelines (EnbStack/UeStack dynamic_phy=True) — the
     'move the live stack's DL/UL data path onto it' done-criterion."""
     from srsran_tpu.apps.full_stack import EnbStack, UeStack
     from srsran_tpu.epc import Hss, Mme, Spgw, Subscriber

@@ -1,5 +1,5 @@
 """Extended cyclic prefix: control region, PHICH durations, PUCCH, and a
-full-stack attach (VERDICT r3 missing #6; reference regs.c:286,331-337).
+full-stack attach (reference regs.c:286,331-337).
 """
 
 import numpy as np

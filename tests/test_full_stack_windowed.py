@@ -1,4 +1,4 @@
-"""Full-stack E2E on the WINDOWED TPU data plane.
+"""Full-stack E2E on the WINDOWED device data plane.
 
 The windowed engines (`pipeline_window.Windowed*`) as the live PHY under
 `apps/full_stack.py` — the reference's sf_worker pipeline role

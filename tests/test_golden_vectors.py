@@ -102,3 +102,17 @@ def test_pdsch_pdcch_file_sib_decode():
     # stable payloads (regression pin, first bytes of the BCCH messages)
     assert decoded[5].hex().startswith("604004")
     assert decoded[2].hex().startswith("00800c")
+
+
+@pytest.mark.gpu
+def test_golden_vectors_on_card(gpu):
+    """The four captures above decode on the card as on the CPU: MIB, cell
+    search, CFI and both SIB transport blocks CRC-OK.  On the card float32
+    matmuls may run in TF32; these are the decisions it could move."""
+    import jax
+
+    assert jax.default_backend() == "gpu"
+    test_pbch_file_mib()
+    test_pdcch_file_cell_search()
+    test_pcfich_file_cfi()
+    test_pdsch_pdcch_file_sib_decode()

@@ -3,7 +3,7 @@
 The reference validates its scheduler with randomized multi-UE
 simulations asserting grid/HARQ invariants every TTI
 (`srsenb/test/mac/scheduler_test_rand.cc`, `sched_grid_test.cc`).  This
-is that harness for the TPU stack: random UE populations, buffer
+is that harness for this stack: random UE populations, buffer
 arrivals, CQI swings and ACK/NACK/DTX feedback, with per-TTI assertions
 on PRB disjointness, HARQ state machine legality, CQI-driven MCS caps,
 and PDCCH CCE allocation legality across UE + common search spaces.

@@ -1,6 +1,6 @@
 """Periodic CQI/RI on PUCCH format 2 — the standing reporting loop.
 
-VERDICT r3 gap #4: the reference keeps link adaptation alive with NO
+The reference keeps link adaptation alive with NO
 PUSCH traffic via periodic CQI on PUCCH 2 (`srsue/src/phy/cc_worker.cc:822`
 set_uci_periodic_cqi).  Here: an attached-but-idle UE (SR-driven UL, so
 no blind grants) reports wideband CQI on its dedicated format-2 resource

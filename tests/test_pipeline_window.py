@@ -429,7 +429,7 @@ def test_window_reduced_rate():
 def test_window_device_loopback():
     """Device-resident loopback: generation window → on-chip channel
     (`window_channel`) → decode window with device ingest — baseband
-    never crosses the host boundary (the TPU serving topology; the
+    never crosses the host boundary (the serving topology; the
     reference's equivalent is the srsenb↔srsue ZMQ sample loop,
     lib/src/phy/rf/rf_zmq_imp.c, which this design replaces with an
     in-HBM hand-off)."""
@@ -593,7 +593,7 @@ def test_window_qam256_max_tb_roundtrip():
     """The largest LTE TB (256QAM MCS27 at 100 PRB: tbs 97896, 16
     codeblocks) through the generation + decode windows with int16
     ingest — exercises MAX_CB=16, the TBS_MAX=98304 packing, the widest
-    rate-match classes, and the higher-SQNR ingest mode (ADVICE r2 #4)."""
+    rate-match classes, and the higher-SQNR ingest mode."""
     from srsran_tpu.phy.modem import Mod
     from srsran_tpu.pipeline_window import WindowedEnbDl
     from srsran_tpu.phy.phch.ra import dl_tbs

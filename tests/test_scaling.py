@@ -1,12 +1,11 @@
 """Carrier-mesh scaling shape on the virtual 8-device CPU mesh.
 
-Real ICI scaling needs real chips; what CAN be validated here (VERDICT r1
-item 8) is (a) weak-scaling CORRECTNESS — N carriers sharded over N
+Real scaling needs real cards; what CAN be validated here is (a) weak-scaling CORRECTNESS — N carriers sharded over N
 devices produce exactly the single-device results with the cross-mesh
 reduction intact — and (b) the efficiency-curve harness itself, which the
 driver can point at real hardware.  Wall-clock on virtual devices shares
 one host's cores, so the curve is reported (stderr) but only sanity-
-bounded, not asserted as ICI efficiency.
+bounded, not asserted as scaling efficiency.
 """
 
 import sys
@@ -63,7 +62,7 @@ def test_weak_scaling_correctness_and_curve():
 
 
 def test_windowed_plane_sharded_bit_exact():
-    """VERDICT r4 item 2a: `dispatch_window(..., sharding=...)` over the
+    """`dispatch_window(..., sharding=...)` over the
     8-device mesh reproduces the unsharded windowed decode BIT-EXACTLY —
     the flagship data plane's multi-device path, not the static
     pipeline's (reference carrier loop srsue/src/phy/sf_worker.cc:198)."""

@@ -1,4 +1,4 @@
-"""Full-stack E2E under channel impairment (VERDICT r1 weak #7): attach
+"""Full-stack E2E under channel impairment: attach
 and pass IP traffic through EPA fading + AWGN at moderate SNR in BOTH
 directions — the reference proves its worth over the air, not on clean
 channels (`lib/src/phy/channel/fading.c` is exactly for this).

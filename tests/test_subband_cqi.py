@@ -1,5 +1,5 @@
-"""Subband CQI + frequency-selective scheduling (VERDICT r4 item 5;
-reference: lib/src/phy/phch/cqi.c:41-118, TS 36.213 §7.2).
+"""Subband CQI + frequency-selective scheduling (reference:
+lib/src/phy/phch/cqi.c:41-118, TS 36.213 §7.2).
 
 E2E: a frequency-selective channel (deep notch over part of the band)
 steers the scheduler's PRB placement away from the notch via the

@@ -1,6 +1,6 @@
 """Full-stack TM3/TM4: attach + 2-codeword traffic over a 2x2 channel.
 
-Closes the loop VERDICT r1 item 5 asked for: the UE measures rank from the
+Closes the loop: the UE measures rank from the
 CRS estimates, reports RI (and PMI for TM4) as UCI-on-PUSCH, the eNB's
 scheduler turns rank-2 reports into DCI 2/2A two-codeword grants, and the
 UE decodes both codewords — the reference's 150 Mbps headline
